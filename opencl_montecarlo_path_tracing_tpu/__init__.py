@@ -1,4 +1,4 @@
-"""TPU-native Monte-Carlo path-tracing framework.
+"""Monte-Carlo path-tracing framework in JAX, run on NVIDIA GPUs.
 
 A ground-up JAX/XLA/Pallas rebuild of the capability set of the reference
 OpenCL thesis renderer family (JustAToaster/OpenCL_MonteCarlo_Path_Tracing):
@@ -12,7 +12,8 @@ core/      counter-based threefry RNG streams, camera (+thin-lens DoF),
 scene/     reference text scene formats (spheres/squares/triangles/lights),
            bitmap -> SoA expansion, AABBs
 ops/       batched primitive intersection, uniform-grid build (sort-based,
-           no atomics) + DDA traversal, VLP gather ops
+           no atomics) + DDA traversal, VLP gather ops, the fused super
+           sample kernel (Pallas, compiled through Triton)
 models/    the integrator family: oracle (CPU recursive reference),
            simple, super (+lmem semantics), sample-parallel (NoDoF),
            trianglegrid, bidirectional (VPL), metropolis (+VLP grid)

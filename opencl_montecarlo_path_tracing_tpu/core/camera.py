@@ -59,6 +59,32 @@ def make_camera(z_sign: float = -1.0) -> Camera:
                   eye_offset=eye_offset)
 
 
+def primary_rays_xyz(cam: Camera, i, j, r1, r2, r3, r4):
+    """Primary rays as six per-component arrays (ox, oy, oz, dx, dy, dz).
+
+    ``i``/``j`` are pixel-coordinate arrays (float32), ``r1..r4`` uniforms
+    with the same shape.  The fused super kernel (ops/pallas_super.py)
+    runs this form; it is :func:`primary_rays` up to the summation order
+    of the direction's norm (last-ulp differences, pinned by
+    tests/test_scene.py)."""
+    f32 = np.float32
+    lj = f32(cam.lens_jitter)
+    fs = f32(cam.fov_scale)
+    e1 = (r1 - f32(0.5)) * lj
+    e2 = (r2 - f32(0.5)) * lj
+    a = r3 + i
+    b = j + r4
+    o, d = [], []
+    for c in range(3):
+        delta = f32(cam.up[c]) * e1 + f32(cam.right[c]) * e2
+        o.append(f32(cam.pos[c]) + delta)
+        d.append(-delta + (f32(cam.up[c]) * a + f32(cam.right[c]) * b
+                           + f32(cam.eye_offset[c])) * fs)
+    inv_norm = f32(1.0) / jnp.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+    return (o[0], o[1], o[2],
+            d[0] * inv_norm, d[1] * inv_norm, d[2] * inv_norm)
+
+
 def primary_rays(cam: Camera, i, j, r1, r2, r3, r4):
     """Batched primary ray generation.
 

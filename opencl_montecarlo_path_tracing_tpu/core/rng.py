@@ -11,13 +11,12 @@ draw is a pure function of
 where ``ray_id`` is the logical sample index (pixel * spp + sample) and
 ``draw_id`` numbers the draw site (a static small integer per code location,
 mixed with the bounce/light indices).  Rendering is therefore bit-identical
-across any batch/chunk/shard layout - the property BASELINE.json's north star
-asks for ("RNG moves to counter-based threefry so samples are reproducible
-across batch layouts").
+across any batch/chunk/shard layout.
 
 The implementation is the standard 20-round Threefry-2x32 block cipher,
-vectorised directly on uint32 jnp arrays so it runs on the TPU VPU with no
-per-element key objects.
+vectorised directly on uint32 jnp arrays with no per-element key objects,
+so the same functions run in the XLA wavefront and inside the fused super
+kernel (ops/pallas_super.py).
 """
 
 from __future__ import annotations

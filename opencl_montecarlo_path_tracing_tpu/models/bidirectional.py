@@ -85,25 +85,6 @@ def illum_vlp(key, scn: SceneArrays, quirks: Quirks, vlps, grid,
     return total_illum, last_ldir
 
 
-def _film_vlp_mega_maybe(key, scn, vlps, grid, width, height, spp,
-                         spp_offset, spp_total, quirks, max_bounces,
-                         row_offset=0, rows=None):
-    """Route the VLP render pass (dense OR grid-limited gather) to the
-    Pallas megakernel on TPU (ops/pallas_bpt.py, ~3-6x the XLA pipeline;
-    equality pinned by tests/test_megakernel.py).  Returns None when the
-    config is outside the kernel's family (carry-t quirk, >8 lights, CPU,
-    or PT_NO_MEGAKERNEL=1)."""
-    import os
-    from ..ops import pallas_bpt as _mega
-    if (max_bounces >= 1 and jax.default_backend() == "tpu"
-            and not os.environ.get("PT_NO_MEGAKERNEL")
-            and _mega.supported(scn, quirks, grid, None)):
-        return _mega.film_vlp_mega(key, scn, vlps, width, height, spp,
-                                   spp_offset, spp_total, quirks, grid=grid,
-                                   row_offset=row_offset, rows=rows)
-    return None
-
-
 def film_bidirectional(key, scn: SceneArrays, width, height, spp, spp_offset,
                        spp_total, n_vlp, quirks,
                        max_bounces=C.MAX_BOUNCES, use_grid: bool = False,
@@ -119,11 +100,6 @@ def film_bidirectional(key, scn: SceneArrays, width, height, spp, spp_offset,
     if use_grid and grid is None:
         res = vlpmod.vlp_grid_static_res(int(vlps.shape[0]), grid_modifier)
         grid = vlpmod.build_vlp_grid(vlps, res)
-    film = _film_vlp_mega_maybe(key, scn, vlps, grid, width, height, spp,
-                                spp_offset, spp_total, quirks, max_bounces,
-                                row_offset=row_offset, rows=rows)
-    if film is not None:
-        return film
     illum = functools.partial(illum_vlp, key, scn, quirks, vlps, grid, None)
     sample_fn = functools.partial(sample_super, key, scn, quirks, max_bounces,
                                   illum_fn=illum)

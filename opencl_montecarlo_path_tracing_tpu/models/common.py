@@ -4,8 +4,7 @@ The reference renders with per-pixel megakernels (64-spp loop x 5-bounce
 unrolled recursion per work item, e.g. pathtracer.ocl:220-241).  Here every
 integrator is a *wavefront*: one flat ray batch per sample pass, a
 ``lax.fori_loop`` with a STATIC bounce count and live-ray masks (see
-``bounce_loop`` below - a dynamic ``while (any(alive))`` condition hits a
-pathological TPU compile path; callers that know a scene cannot bounce pass
+``bounce_loop`` below; callers that know a scene cannot bounce pass
 max_bounces=1), and a film accumulator.  Everything stays jit-resident;
 there is no host sync per bounce or per sample.
 """
@@ -123,12 +122,12 @@ def bounce_loop(step_fn, init_state, max_bounces: int = MAX_BOUNCES):
     """for b in range(max_bounces): state = step_fn(b, state) - a fori_loop
     with live-ray masks.
 
-    The trip count is STATIC on purpose: a ``while (any(alive))`` condition
-    hits a pathological minutes-long compile path in the TPU backend for
-    small ray batches (a reduction over a loop-carried array in the loop
-    condition).  Callers that know a scene cannot bounce (the whole "super"
-    family - the mirror branch is dead code, SURVEY.md section 2.10) pass
-    max_bounces=1 instead of relying on dynamic termination.
+    The trip count is STATIC: a ``while (any(alive))`` condition would put
+    a reduction over a loop-carried array into the loop condition, which
+    the compiler cannot schedule ahead.  Callers that know a scene cannot
+    bounce (the whole "super" family - the mirror branch is dead code,
+    SURVEY.md section 2.10) pass max_bounces=1 instead of relying on
+    dynamic termination.
     """
     def body(b, state):
         return step_fn(jnp.uint32(b), state)

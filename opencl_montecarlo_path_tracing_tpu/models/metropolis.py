@@ -304,12 +304,6 @@ def film_metropolis(key, scn: SceneArrays, width, height, spp, spp_offset,
                vlpmod.vlp_grid_static_res(int(vlps.shape[0]),
                                           grid_modifier))
         grid = vlpmod.build_vlp_grid(vlps, res)
-    from .bidirectional import _film_vlp_mega_maybe
-    film = _film_vlp_mega_maybe(key, scn, vlps, grid, width, height, spp,
-                                spp_offset, spp_total, quirks, max_bounces,
-                                row_offset=row_offset, rows=rows)
-    if film is not None:
-        return film
     illum = functools.partial(illum_vlp, key, scn, quirks, vlps, grid, None)
     sample_fn = functools.partial(sample_super, key, scn, quirks, max_bounces,
                                   illum_fn=illum)

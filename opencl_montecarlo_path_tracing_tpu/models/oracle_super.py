@@ -36,10 +36,13 @@ def _normalize(v):
     return v / np.sqrt((v * v).sum(-1, keepdims=True))
 
 
-def _trace(o, d, scene: Scene, quirks: Quirks):
-    """Returns (m, t, normal) for ray batch; mirrors pathtracer.ocl:48-137."""
+def _trace(o, d, scene: Scene, quirks: Quirks, t_init=_BIG):
+    """Returns (m, t, normal) for ray batch; mirrors pathtracer.ocl:48-137.
+    ``t_init`` (scalar or per ray) is the caller-initialised max distance
+    (the _lmem binaries' carried t, core/quirks.py::shadow_carry_t)."""
     n = o.shape[0]
-    t = np.full(n, _BIG, np.float32)
+    t = np.array(np.broadcast_to(np.float32(t_init) if np.isscalar(t_init)
+                                 else np.asarray(t_init, np.float32), (n,)))
     m = np.zeros(n, np.int32)
     normal = np.zeros((n, 3), np.float32)
 
@@ -134,6 +137,7 @@ def _sample(o, d, scene: Scene, rng, quirks: Quirks, max_bounces=5,
         x = (o + d * t[:, None]).astype(np.float32)
         shading = alive & (m != 0)
 
+        t_run = t.copy()    # the _lmem carry: starts at the primary hit
         last_ldir = d.copy()
         for li, lp in enumerate(scene.lights):
             if light_draws is None:
@@ -146,7 +150,11 @@ def _sample(o, d, scene: Scene, rng, quirks: Quirks, max_bounces=5,
             jit = np.stack([r1, r2, np.zeros(n, np.float32)], -1)
             ldir = _normalize(lp[:3] + jit - x)
             lamb = (ldir * normal).sum(-1)
-            sh_m, _, _ = _trace(x, ldir, scene, quirks)
+            if quirks.shadow_carry_t:
+                sh_m, sh_t, _ = _trace(x, ldir, scene, quirks, t_init=t_run)
+                t_run = np.where(lamb < 0, t_run, sh_t)
+            else:
+                sh_m, _, _ = _trace(x, ldir, scene, quirks)
             dist2 = ((lp[:3] - x) ** 2).sum(-1)
             contrib = np.where((lamb < 0) | (sh_m != 0), 0.0,
                                lamb * np.minimum(lp[3] / dist2, 1.0))
@@ -190,7 +198,8 @@ def render_oracle_super(scene: Scene, width: int = 64, height: int = 64,
                         spp: int = 64, seed: int = 0,
                         quirks: Quirks = DEFAULT,
                         max_bounces: int = 5, key=None,
-                        row_offset: int = 0) -> np.ndarray:
+                        row_offset: int = 0, spp_offset: int = 0,
+                        spp_total: int | None = None) -> np.ndarray:
     """Pre-ambient float film (H, W, 3), GPU layout (z_sign=-1 basis,
     direct indexing).
 
@@ -198,8 +207,13 @@ def render_oracle_super(scene: Scene, width: int = 64, height: int = 64,
     numbers: every draw comes from the same (key, pixel*spp+s, site)
     threefry streams the JAX integrator consumes (models/super.py).
     ``row_offset`` renders a band of pixel rows starting there (global
-    pixel ids - matches the TPU renderers' band API; the camera frame is
-    fixed for 512x512, so small windows at the origin are all sky)."""
+    pixel ids - matches the JAX renderers' band API; the camera frame is
+    fixed for 512x512, so small windows at the origin are all sky).
+    ``spp_offset``/``spp_total`` select the sample window
+    [spp_offset, spp_offset + spp) of a spp_total-sample render (the
+    sharded renderers' window, models/common.py::accumulate_spp)."""
+    if spp_total is None:
+        spp_total = spp
     f32 = np.float32
     rng = np.random.default_rng(seed)
 
@@ -226,8 +240,8 @@ def render_oracle_super(scene: Scene, width: int = 64, height: int = 64,
             light_draws = None
         else:
             with np.errstate(over="ignore"):
-                ray_id = (pixel_index * np.uint32(spp)
-                          + np.uint32(s)).astype(np.uint32)
+                ray_id = (pixel_index * np.uint32(spp_total)
+                          + np.uint32(s + spp_offset)).astype(np.uint32)
             r = rngmod.randn_draws_np(key, ray_id, SITE_CAMERA, 4)
 
             def light_draws(b, i, _rid=ray_id):

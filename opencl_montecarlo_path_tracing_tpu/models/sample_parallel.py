@@ -6,7 +6,7 @@ ONE sample (pixel = gid >> 3) into a float4 temp buffer, and a second kernel
 ``reduce4img_lmem`` tree-reduces the 8x8 = 64 samples per pixel, adds the
 ambient term and converts to uchar4 (pathtracer.ocl:217-274).
 
-On TPU, samples are simply a batch axis: this variant materialises the whole
+Here, samples are simply a batch axis: this variant materialises the whole
 (H*sg, W*sg) sample buffer in one wavefront pass (one camera-jitter draw per
 sample - exactly the reference's "no per-spp DoF loop" behaviour, which is
 also how every sample behaves in our other integrators) and reduces it with
@@ -28,7 +28,8 @@ import jax.numpy as jnp
 
 from ..core.quirks import Quirks, DEFAULT
 from ..ops.intersect import SceneArrays, prep_scene
-from ..ops.reduce import reduce_samples
+from ..ops import pallas_super as _kernel
+from ..ops.reduce import quantize_film, reduce_samples
 from ..scene.scene import Scene
 from . import common as C
 from .super import sample_super
@@ -73,32 +74,14 @@ def render_sample_parallel(key, scene: Scene | SceneArrays, width: int = 512,
     sample buffer). The whole pipeline - sampling and reduction - runs as
     one device program.
 
-    On TPU (when the full sample buffer is not requested) this routes
-    through the super megakernel: ray ids are keyed (pixel*spp + sample)
-    in BOTH layouts, so the megakernel's spp accumulation computes the
-    same per-pixel sum as reduce_samples' tree - to float summation
-    order (within-pixel reassociation can flip a uint8 on exact integer
-    boundaries; tests/test_megakernel.py::test_nodof_megakernel_route
-    pins the <= 1 ULP bound).  PT_NO_MEGAKERNEL=1 forces the XLA
-    sample-buffer pipeline."""
-    import os
+    Programs lowered for CUDA (when the full sample buffer is not
+    requested) render the film with the fused super kernel
+    (ops/pallas_super.py) and quantize it: ray ids are keyed (pixel*spp +
+    sample) in both layouts, so the kernel's spp accumulation computes the
+    same per-pixel sum as reduce_samples' tree, to float summation order
+    (within-pixel reassociation can flip a uint8 on an exact integer
+    boundary; tests/test_pallas_super.py pins the <= 1 step bound)."""
     scn = prep_scene(scene) if isinstance(scene, Scene) else scene
-    if not return_samples and jax.default_backend() == "tpu" \
-            and not os.environ.get("PT_NO_MEGAKERNEL"):
-        from ..ops import pallas_super as _mega
-        if _mega.supported(scn, quirks, None, None, max_bounces):
-            from ..ops.reduce import quantize_film
-            spp = sample_grid * sample_grid
-            cfg = (scn.fingerprint(), width, height, sample_grid, quirks,
-                   max_bounces, "mega")
-            fn = _COMPILED.get(cfg)
-            if fn is None:
-                fn = jax.jit(lambda k: quantize_film(
-                    _mega.film_super_mega(k, scn, width, height, spp,
-                                          quirks=quirks),
-                    wrap=quirks.wrap_uint8))
-                _COMPILED[cfg] = fn
-            return fn(key)
     cfg = (scn.fingerprint(), width, height, sample_grid, quirks,
            max_bounces, return_samples)
     fn = _COMPILED.get(cfg)
@@ -108,6 +91,17 @@ def render_sample_parallel(key, scene: Scene | SceneArrays, width: int = 512,
                                 max_bounces)
             img = reduce_samples(buf, sample_grid, wrap=quirks.wrap_uint8)
             return (img, buf) if return_samples else img
-        fn = jax.jit(run)
+
+        def fused(k):
+            film = _kernel.film_super_kernel(k, scn, width, height,
+                                             sample_grid * sample_grid,
+                                             quirks=quirks)
+            return quantize_film(film, wrap=quirks.wrap_uint8)
+
+        if return_samples or not _kernel.supported(scn, max_bounces):
+            fn = jax.jit(run)
+        else:
+            fn = jax.jit(lambda k: jax.lax.platform_dependent(
+                k, cuda=fused, default=run))
         _COMPILED[cfg] = fn
     return fn(key)

@@ -91,21 +91,10 @@ def film_simple(key, width, height, spp, spp_offset, spp_total,
 
     ``spp_offset`` may be a traced value - the sharded renderer passes an
     axis_index-derived sample-window offset (parallel/mesh.py), exactly as
-    film_super does.
-
-    On TPU this routes to the Pallas megakernel (ops/pallas_simple.py),
-    which runs the full 5-bounce mirror recursion in one kernel
-    (PT_NO_MEGAKERNEL=1 forces the XLA wavefront; film equality pinned by
-    tests/test_megakernel.py)."""
-    import os
+    film_super does."""
     if spp_total is None:
         spp_total = spp
     scn = prep_scene(simple_scene())
-    if (jax.default_backend() == "tpu"
-            and not os.environ.get("PT_NO_MEGAKERNEL")):
-        from ..ops.pallas_simple import film_simple_mega
-        return film_simple_mega(key, scn, width, height, spp, spp_offset,
-                                spp_total, quirks, max_bounces=max_bounces)
     sample_fn = functools.partial(_sample, key, scn, quirks, max_bounces)
     return C.accumulate_spp(sample_fn, width, height, spp,
                             spp_offset=spp_offset, spp_total=spp_total)

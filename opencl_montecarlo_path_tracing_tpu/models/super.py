@@ -3,8 +3,8 @@
 Reference: CLSuperPathTracer/pathtracer.ocl - adds squares, triangles
 (Moller-Trumbore), multiple point lights with inverse-square falloff and
 soft shadows, 5-material shading; scene from text files.  The _lmem variant
-(SURVEY.md section 2 #6) differs only in work-group caching, which has no TPU
-analogue (scene constants are VMEM-resident automatically), and in an
+(SURVEY.md section 2 #6) differs only in work-group caching (the fused kernel,
+ops/pallas_super.py, reads its scene tables through the cache), and in an
 accidental aliasing of the running hit distance into the shadow trace
 (CLSuperPathTracer_lmem/pathtracer.ocl:178), reproduced behind
 ``quirks.shadow_carry_t`` (CLI ``superlmem --quirks reference``).
@@ -32,6 +32,7 @@ from ..core import rng as rngmod
 from ..core.quirks import Quirks, DEFAULT
 from ..core.camera import make_camera, primary_rays
 from ..ops.intersect import SceneArrays, prep_scene, trace_ray, any_hit
+from ..ops import pallas_super as _kernel
 from ..scene.scene import Scene
 from . import common as C
 
@@ -194,24 +195,26 @@ def film_super(key, scn: SceneArrays, width, height, spp, spp_offset,
     ``spp_offset``/``row_offset`` may be traced values - the sharded
     renderers pass axis_index-derived offsets (parallel/mesh.py).
 
-    On TPU the supported family (mirror-free scene, standard lighting;
-    every quirk mode incl. the _lmem carry-t aliasing) routes to the
-    Pallas megakernel (ops/pallas_super.py, ~2x the XLA pipeline; film
-    equality pinned by test_megakernel.py).  Set PT_NO_MEGAKERNEL=1 to
-    force the XLA path."""
-    import os
-    import jax as _jax
-    from ..ops import pallas_super as _mega
-    if (max_bounces >= 1 and _jax.default_backend() == "tpu"
-            and not os.environ.get("PT_NO_MEGAKERNEL")
-            and _mega.supported(scn, quirks, None, None, max_bounces)):
-        return _mega.film_super_mega(key, scn, width, height, spp,
-                                     spp_offset, spp_total, quirks,
-                                     row_offset, rows)
-    sample_fn = functools.partial(sample_super, key, scn, quirks, max_bounces)
-    return C.accumulate_spp(sample_fn, width, height, spp,
-                            spp_offset=spp_offset, spp_total=spp_total,
-                            row_offset=row_offset, rows=rows)
+    Programs lowered for CUDA run the covered family (ops/pallas_super.py
+    ``supported``) as one fused Pallas kernel; every other platform, and
+    every render outside that family, runs the XLA wavefront below.  The
+    choice is made when the program is lowered (``platform_dependent``)."""
+    def xla():
+        sample_fn = functools.partial(sample_super, key, scn, quirks,
+                                      max_bounces)
+        return C.accumulate_spp(sample_fn, width, height, spp,
+                                spp_offset=spp_offset, spp_total=spp_total,
+                                row_offset=row_offset, rows=rows)
+
+    if not _kernel.supported(scn, max_bounces):
+        return xla()
+
+    def fused():
+        return _kernel.film_super_kernel(key, scn, width, height, spp,
+                                         spp_offset, spp_total, quirks,
+                                         row_offset, rows)
+
+    return jax.lax.platform_dependent(cuda=fused, default=xla)
 
 
 # compiled-render cache: the scene is a compile-time constant, so jitted

@@ -4,7 +4,7 @@ Reference pipeline (SURVEY.md section 3.3): parse triangles + global AABB ->
 host computes grid resolution (cbrt heuristic) -> device ``initTrianglesGrid``
 scatters triangles with atomics -> pathTracer runs a 3-D DDA inside TraceRay.
 
-TPU rebuild: the grid is built once per scene by a deterministic sort-based
+Rebuild: the grid is built once per scene by a deterministic sort-based
 binning (ops/grid.py, no atomics), then every TraceRay (primary and shadow)
 walks it with the masked-DDA traversal.  Estimator math is identical to the
 super tracer; CLI adds CELL_SIZE_MODIFIER (default 3.0,
@@ -50,34 +50,18 @@ def render_trianglegrid(key, scene: Scene | SceneArrays, width: int = 512,
                         spp_offset: int = 0, spp_total: int | None = None,
                         quirks: Quirks = DEFAULT,
                         max_bounces: int = C.MAX_BOUNCES,
-                        device_build: bool = True, accel: str = "auto"):
-    """Render via an acceleration structure; returns the pre-ambient film.
+                        device_build: bool = True):
+    """Render via the uniform-grid DDA (ops/grid.py::traverse_triangles);
+    returns the pre-ambient film.
 
     The image is identical to brute force by contract (the reference's
     grid only accelerates TraceRay, it never changes the estimator;
-    test_grid.py pins DDA == brute bit-equality).  ``accel``:
-
-    * "auto" (default): on TPU, route to the megakernel, whose
-      Morton-blocked AABB-skip scan is the TPU-native acceleration
-      structure for large meshes (docs/PERF.md - per-lane DDA gathers
-      serve ~1 lane/cycle and always lose on TPU); elsewhere the DDA.
-    * "dda": force the reference-shaped uniform-grid walk
-      (ops/grid.py::traverse_triangles).  CELL_SIZE_MODIFIER only affects
-      the grid build, never the image.
+    test_grid.py pins DDA == brute bit-equality).  CELL_SIZE_MODIFIER only
+    affects the grid build, never the image.
     """
     scn = prep_scene(scene) if isinstance(scene, Scene) else scene
     if spp_total is None:
         spp_total = spp
-    if accel == "auto":
-        import os
-        from ..ops import pallas_super as _mega
-        if (jax.default_backend() == "tpu"
-                and not os.environ.get("PT_NO_MEGAKERNEL")
-                and max_bounces >= 1
-                and _mega.supported(scn, quirks, None, None, max_bounces)):
-            from .super import render_super
-            return render_super(key, scn, width, height, spp, spp_offset,
-                                spp_total, quirks, max_bounces)
     cfg = (scn.fingerprint(), width, height, spp, spp_offset, spp_total,
            quirks, max_bounces, cell_size_modifier, device_build)
     fn = _COMPILED.get(cfg)

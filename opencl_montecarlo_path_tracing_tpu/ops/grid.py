@@ -5,7 +5,7 @@ Reference (SURVEY.md section 2 #8, #12):
    elem_index[62]}`` with ``atomic_inc`` + overflow-drop
    (CLSuperPathTracer_trianglegrid/pathtracer.ocl:285-330), making cell
    contents nondeterministic and, when nels > 62, reading out of bounds in
-   ``CellIntersect`` (ocl:90).  TPU has no global atomics; the rebuild uses a
+   ``CellIntersect`` (ocl:90).  The rebuild needs no atomics; it uses a
    sort-based binning (pairs sorted by (cell, item)), which is deterministic
    (ascending item index per cell) and clamps counts to the cap.
  * grid resolution heuristic: res_axis = clamp(floor(size_axis *
@@ -276,7 +276,7 @@ def traverse_triangles(o, d, t, m, nx, ny, nz, needs_norm,
     cap = grid.items.shape[1]
 
     # per-axis component arrays: every step is pure elementwise selects on
-    # (R,) lanes (Mosaic compiles these ~50x faster than the vectorised
+    # (R,) lanes (compiles far faster than the vectorised
     # argmin/one_hot/take_along_axis formulation)
     one = jnp.float32(1.0)
     vminx, vminy, vminz = vmin[0], vmin[1], vmin[2]
@@ -319,8 +319,7 @@ def traverse_triangles(o, d, t, m, nx, ny, nz, needs_norm,
     spy = jnp.where(posy, ry, -1).astype(jnp.int32)
     spz = jnp.where(posz, rz, -1).astype(jnp.int32)
 
-    # STATIC trip count: a while_loop conditioned on any(active) hits a
-    # pathological TPU compile path for small batches (see models/common.py)
+    # STATIC trip count, as in models/common.py::bounce_loop
     max_steps = rx + ry + rz + 2
 
     # PT_KERNEL_DEBUG=1: the analog of the reference's commented-out DDA
@@ -337,8 +336,8 @@ def traverse_triangles(o, d, t, m, nx, ny, nz, needs_norm,
         cell = jnp.clip(iz * (rx * ry) + iy * rx + ix, 0, rx * ry * rz - 1)
         cnt = grid.counts[cell]
         # pre-join the cell's item rows and their triangle data in two
-        # batched gathers (gathers dominate this kernel; per-slot gathers
-        # measured ~3x slower)
+        # batched gathers (gathers dominate this loop; one gather per slot
+        # would multiply their count by the cell capacity)
         rows = grid.items[cell]                      # (R, cap)
         trows = table[jnp.maximum(rows, 0)]          # (R, cap, 12)
 

@@ -5,19 +5,22 @@ The reference's TraceRay is a per-ray sequential scan over primitive classes
 then the sphere bitmap, then a Moller-Trumbore loop over triangles, each
 accepting a hit only when strictly closer than the best so far.
 
-TPU-native expression: the scene is *static per compile* (shapes and values
-baked as literals), and the primitive loops are unrolled in Python over
-numpy scalar constants while rays stay as flat float32 arrays on the
-128-lane axis.  XLA fuses the whole scan into one register/VMEM-resident
-pass over the ray batch - no (n_rays x n_prims) intermediates ever touch
-HBM, which is what limits the naive broadcast formulation (measured 8
-Mpaths/s broadcast vs target >= 100).  The sequential thread of the running
-best-t through every primitive preserves the reference's exact ordering and
-strict-< tie semantics.
+Here the scene is *static per compile* (shapes and values baked as
+literals) and rays are flat float32 arrays.  The squares unroll in Python
+over numpy scalar constants; spheres and triangles are ``fori_loop`` scans
+whose body broadcasts one table row against the ray arrays, so no
+(n_rays x n_prims) intermediate is ever built.  The sequential thread of
+the running best-t through every primitive preserves the reference's exact
+ordering and strict-< tie semantics.
 
-Meshes with >= _MXU_MIN_TRIANGLES triangles route to the fused Pallas MXU
-kernel (ops/pallas_tri.py); larger still should use the uniform grid
-(ops/grid.py).
+The scans are written once, on per-component ray arrays, and read the
+scene through :class:`PrimTables` row accessors.  The XLA wavefront path
+(:func:`trace_ray`, :func:`any_hit`) reads rows from constant tables with
+``dynamic_slice``; the fused super kernel (ops/pallas_super.py) runs the
+very same functions inside one Pallas program, reading rows from its
+kernel inputs.  The division-free triangle scan serves every mesh size;
+meshes far past the reference scene's ~100 triangles are better served by
+the uniform grid (ops/grid.py).
 
 Semantics preserved exactly (with Quirks toggles, see core/quirks.py):
   floor   (ocl:65-70):   p = -oz/dz, hit if 0.01 < p < t, m=1, n=(0,0,1)
@@ -32,7 +35,7 @@ Semantics preserved exactly (with Quirks toggles, see core/quirks.py):
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import jax
@@ -43,7 +46,6 @@ from ..scene.scene import Scene
 
 _EPS = np.float32(0.01)
 _BIG = np.float32(1e9)
-_INF = np.float32(np.inf)
 
 
 class SceneArrays(NamedTuple):
@@ -56,7 +58,6 @@ class SceneArrays(NamedTuple):
     tri_e0: np.ndarray          # (Nt, 3)  v1 - v0
     tri_e2: np.ndarray          # (Nt, 3)  v2 - v0
     tri_n: np.ndarray           # (Nt, 3)  normalize(e0 x e2)
-    tri_w: np.ndarray           # (13, 4*Nt) MXU weights (see _triangle_weights)
     lights: np.ndarray          # (Nl, 4)
 
     def fingerprint(self) -> bytes:
@@ -65,54 +66,6 @@ class SceneArrays(NamedTuple):
         for a in self:
             h.update(np.ascontiguousarray(a).tobytes())
         return h.digest()
-
-
-def _triangle_weights(v0, e0, e2):
-    """(13, 4*Nt) weights expressing Moller-Trumbore's four per-pair scalars
-    as one matmul against the ray feature vector
-
-        f = [1, ox, oy, oz, dx, dy, dz,
-             dx*oy, dx*oz, dy*ox, dy*oz, dz*ox, dz*oy]
-
-    Derivation (scalar triple products):
-        det    = e0 . (d x e2)        = d . (e2 x e0)
-        u*det  = (o - v0) . (d x e2)  = d . (e2 x o) - d . (e2 x v0)
-        v*det  = d . ((o - v0) x e0)  = d . (o x e0) - d . (v0 x e0)
-        t*det  = e2 . ((o - v0) x e0) = o . (e0 x e2) - v0 . (e0 x e2)
-    The d.(a x o) terms expand over the six off-diagonal (d_i o_j) products.
-    """
-    nt = v0.shape[0]
-    w = np.zeros((13, 4, nt), np.float32)
-
-    def cross(a, b):
-        return np.cross(a, b).astype(np.float32)
-
-    n1 = cross(e2, e0)                      # det = d . n1
-    w[4:7, 0] = n1.T
-    # u*det: bilinear coefs from e2, linear-in-d coefs -(e2 x v0)
-    # d.(e2 x o) products: dx*oy: -e2z ; dx*oz: +e2y ; dy*ox: +e2z ;
-    #                      dy*oz: -e2x ; dz*ox: -e2y ; dz*oy: +e2x
-    w[7, 1] = -e2[:, 2]
-    w[8, 1] = e2[:, 1]
-    w[9, 1] = e2[:, 2]
-    w[10, 1] = -e2[:, 0]
-    w[11, 1] = -e2[:, 1]
-    w[12, 1] = e2[:, 0]
-    w[4:7, 1] = -cross(e2, v0).T
-    # v*det: d.(o x e0): dx*oy: +e0z ; dx*oz: -e0y ; dy*ox: -e0z ;
-    #                    dy*oz: +e0x ; dz*ox: +e0y ; dz*oy: -e0x
-    w[7, 2] = e0[:, 2]
-    w[8, 2] = -e0[:, 1]
-    w[9, 2] = -e0[:, 2]
-    w[10, 2] = e0[:, 0]
-    w[11, 2] = e0[:, 1]
-    w[12, 2] = -e0[:, 0]
-    w[4:7, 2] = -cross(v0, e0).T
-    # t*det: o-linear coefs n = e0 x e2, const -v0.n
-    n = cross(e0, e2)
-    w[1:4, 3] = n.T
-    w[0, 3] = -(v0 * n).sum(-1)
-    return w.reshape(13, 4 * nt)
 
 
 def prep_scene(scene: Scene) -> SceneArrays:
@@ -131,7 +84,6 @@ def prep_scene(scene: Scene) -> SceneArrays:
         square_k=(scene.square_kj[:, 0] if nq else np.zeros(0)).astype(f32),
         square_z=(scene.square_kj[:, 1] + 4.0 if nq else np.zeros(0)).astype(f32),
         tri_v0=v0, tri_e0=e0, tri_e2=e2, tri_n=n,
-        tri_w=_triangle_weights(v0, e0, e2),
         lights=scene.lights.astype(f32).reshape(-1, 4),
     )
 
@@ -143,23 +95,48 @@ class TraceResult(NamedTuple):
                            #             3 square/diffuse-sphere, 4 triangle
 
 
+class PrimTables(NamedTuple):
+    """Where a scan reads the scene.  Squares are static constants;
+    ``sphere(i)`` returns the 3 center scalars of sphere ``i`` and
+    ``tri(i)`` the 12 scalars of packed triangle row ``i`` (v0, e0, e2,
+    unit normal - :func:`_tri_table`).  ``i`` is a traced loop index."""
+    square_k: np.ndarray
+    square_z: np.ndarray
+    n_spheres: int
+    sphere: Callable
+    n_tris: int
+    tri: Callable
+
+
+def scene_tables(scn: SceneArrays, triangles: bool = True) -> PrimTables:
+    """Row accessors over constant device tables (the XLA path)."""
+    centers = jnp.asarray(scn.sphere_centers)
+    n_tris = int(scn.tri_v0.shape[0]) if triangles else 0
+    table = jnp.asarray(_tri_table(scn)) if n_tris else None
+
+    def sphere(i):
+        c = jax.lax.dynamic_slice(centers, (i, 0), (1, 3))[0]
+        return c[0], c[1], c[2]
+
+    def tri(i):
+        return jax.lax.dynamic_slice(table, (i, 0), (1, 12))[0]
+
+    return PrimTables(scn.square_k, scn.square_z,
+                      int(scn.sphere_centers.shape[0]), sphere, n_tris, tri)
+
 
 def _dot3(ax, ay, az, bx, by, bz):
     return ax * bx + ay * by + az * bz
 
 
-def trace_ray(o, d, scn: SceneArrays, t_init=_BIG, quirks: Quirks = DEFAULT,
-              sphere_material: int = 3, triangles: bool = True,
-              tri_override=None) -> TraceResult:
-    """Closest-hit query for a ray batch o/d of shape (..., 3).
-
-    ``t_init`` reproduces the lmem variants' caller-initialised max distance
-    (SURVEY.md section 2 #6); plain variants pass the default 1e9.
-    ``sphere_material`` is 2 (mirror) in the simple tracer (spt.ocl:68) and
-    3 (diffuse) in all super tracers (pathtracer.ocl:103).
-    """
-    ox, oy, oz = o[..., 0], o[..., 1], o[..., 2]
-    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+def closest_hit_xyz(ox, oy, oz, dx, dy, dz, tabs: PrimTables, t_init=_BIG,
+                    quirks: Quirks = DEFAULT, sphere_material: int = 3,
+                    tri_override=None):
+    """Closest-hit scan on per-component ray arrays; returns
+    (t, m, nx, ny, nz) with unit normals.  ``tri_override(t, m, nx, ny,
+    nz, needs) -> same`` replaces the brute-force triangle scan."""
+    one = jnp.float32(1.0)
+    zero = jnp.float32(0.0)
     R = ox.shape
 
     t = jnp.broadcast_to(jnp.asarray(t_init, jnp.float32), R)
@@ -167,9 +144,7 @@ def trace_ray(o, d, scn: SceneArrays, t_init=_BIG, quirks: Quirks = DEFAULT,
     nx = jnp.zeros(R, jnp.float32)
     ny = jnp.zeros(R, jnp.float32)
     nz = jnp.zeros(R, jnp.float32)
-    needs_norm = jnp.zeros(R, bool)   # sphere normals normalised at the end
-    one = jnp.float32(1.0)
-    zero = jnp.float32(0.0)
+    needs = jnp.zeros(R, bool)   # sphere normals normalised at the end
 
     inv_dz = one / dz
 
@@ -178,13 +153,10 @@ def trace_ray(o, d, scn: SceneArrays, t_init=_BIG, quirks: Quirks = DEFAULT,
     hit = (p > _EPS) & (p < t)
     t = jnp.where(hit, p, t)
     m = jnp.where(hit, 1, m)
-    nx = jnp.where(hit, zero, nx)
-    ny = jnp.where(hit, zero, ny)
     nz = jnp.where(hit, one, nz)
-    needs_norm = needs_norm & ~hit
 
     # --- squares ---
-    for k, z in zip(scn.square_k, scn.square_z):
+    for k, z in zip(tabs.square_k, tabs.square_z):
         rd = (np.float32(z) - oz) * inv_dz
         ix = ox + dx * rd
         iy = oy + dy * rd
@@ -196,18 +168,14 @@ def trace_ray(o, d, scn: SceneArrays, t_init=_BIG, quirks: Quirks = DEFAULT,
         nx = jnp.where(ok, zero, nx)
         ny = jnp.where(ok, zero, ny)
         nz = jnp.where(ok, one, nz)
-        needs_norm = needs_norm & ~ok
+        needs = needs & ~ok
 
-    # --- spheres --- (fori scan over a constant center table; each
-    # iteration broadcasts 3 scalars against the ray lanes - no (R, Ns)
-    # temporaries, compact HLO)
-    if scn.sphere_centers.shape[0]:
-        centers = jnp.asarray(scn.sphere_centers)
-
+    # --- spheres ---
+    if tabs.n_spheres:
         def sphere_body(i, carry):
             t, m, nx, ny, nz, needs = carry
-            c = jax.lax.dynamic_slice(centers, (i, 0), (1, 3))[0]
-            px, py, pz = ox - c[0], oy - c[1], oz - c[2]
+            cx, cy, cz = tabs.sphere(i)
+            px, py, pz = ox - cx, oy - cy, oz - cz
             b = _dot3(px, py, pz, dx, dy, dz)
             cc = _dot3(px, py, pz, px, py, pz) - one
             q = b * b - cc
@@ -221,26 +189,20 @@ def trace_ray(o, d, scn: SceneArrays, t_init=_BIG, quirks: Quirks = DEFAULT,
             needs = needs | ok
             return t, m, nx, ny, nz, needs
 
-        t, m, nx, ny, nz, needs_norm = jax.lax.fori_loop(
-            0, scn.sphere_centers.shape[0], sphere_body,
-            (t, m, nx, ny, nz, needs_norm))
+        t, m, nx, ny, nz, needs = jax.lax.fori_loop(
+            0, tabs.n_spheres, sphere_body, (t, m, nx, ny, nz, needs))
 
     # --- triangles ---
     if tri_override is not None:
-        t, m, nx, ny, nz, needs_norm = tri_override(
-            o, d, t, m, nx, ny, nz, needs_norm)
-    elif triangles and 0 < scn.tri_v0.shape[0] < _MXU_MIN_TRIANGLES:
-        # fori scan, DIVISION-FREE: validity and the running-min comparison
-        # are evaluated on det-scaled quantities (sign-adjusted so the
+        t, m, nx, ny, nz, needs = tri_override(t, m, nx, ny, nz, needs)
+    elif tabs.n_tris:
+        # DIVISION-FREE: validity and the running-min comparison are
+        # evaluated on det-scaled quantities (sign-adjusted so the
         # denominator is positive); the best distance is carried as a
         # (numerator, denominator) pair and divided once after the loop.
-        table = jnp.asarray(_tri_table(scn))
-        one = jnp.float32(1.0)
-        bn, bd = t, jnp.ones_like(t)
-
         def tri_body(i, carry):
             bn, bd, m, nx, ny, nz, needs = carry
-            r = jax.lax.dynamic_slice(table, (i, 0), (1, 12))[0]
+            r = tabs.tri(i)
             det, un, vn, tn = _mt_quads_scalar(ox, oy, oz, dx, dy, dz, r)
             sg = jnp.where(det >= 0, one, -one)
             dd = det * sg
@@ -261,48 +223,22 @@ def trace_ray(o, d, scn: SceneArrays, t_init=_BIG, quirks: Quirks = DEFAULT,
             needs = needs & ~ok
             return bn, bd, m, nx, ny, nz, needs
 
-        bn, bd, m, nx, ny, nz, needs_norm = jax.lax.fori_loop(
-            0, scn.tri_v0.shape[0], tri_body,
-            (bn, bd, m, nx, ny, nz, needs_norm))
+        bn, bd, m, nx, ny, nz, needs = jax.lax.fori_loop(
+            0, tabs.n_tris, tri_body,
+            (t, jnp.ones_like(t), m, nx, ny, nz, needs))
         t = bn / bd
-    elif triangles and scn.tri_v0.shape[0] >= _MXU_MIN_TRIANGLES:
-        # MXU path: all pair scalars from one matmul fused with the epilogue
-        # and min/argmin inside a Pallas kernel (VMEM-resident); the merge is
-        # equivalent to the sequential scan (strict-< running best)
-        from .pallas_tri import triangle_closest
-        shape = o.shape[:-1]
-        tt, idx = triangle_closest(o.reshape(-1, 3), d.reshape(-1, 3),
-                                   scn, quirks)
-        tt = tt.reshape(shape)
-        tn = jnp.asarray(scn.tri_n)[idx].reshape(shape + (3,))
-        ok = tt < t
-        t = jnp.where(ok, tt, t)
-        m = jnp.where(ok, 4, m)
-        nx = jnp.where(ok, tn[..., 0], nx)
-        ny = jnp.where(ok, tn[..., 1], ny)
-        nz = jnp.where(ok, tn[..., 2], nz)
-        needs_norm = needs_norm & ~ok
     inv_len = jnp.where(
-        needs_norm,
+        needs,
         jax.lax.rsqrt(jnp.maximum(_dot3(nx, ny, nz, nx, ny, nz),
                                   jnp.float32(1e-30))),
         one)
-    normal = jnp.stack([nx * inv_len, ny * inv_len, nz * inv_len], axis=-1)
-    return TraceResult(t=t, normal=normal, material=m)
+    return t, m, nx * inv_len, ny * inv_len, nz * inv_len
 
 
-def any_hit(o, d, scn: SceneArrays, t_limit=_BIG, quirks: Quirks = DEFAULT,
-            triangles: bool = True):
-    """Occlusion query: does any primitive hit with t < t_limit?
-
-    Matches the reference's shadow test, which calls full TraceRay and checks
-    material != 0 (pathtracer.ocl:180).  The plain super tracer re-initialises
-    t to 1e9 inside TraceRay so *any* hit occludes, even beyond the light;
-    the bidirectional/metropolis variants pass the light distance as the cap
-    - expressed here via ``t_limit`` (scalar or per-ray array).
-    """
-    ox, oy, oz = o[..., 0], o[..., 1], o[..., 2]
-    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+def occluded_xyz(ox, oy, oz, dx, dy, dz, tabs: PrimTables, t_limit=_BIG,
+                 quirks: Quirks = DEFAULT):
+    """Any-hit scan on per-component ray arrays: does any primitive hit
+    with t < ``t_limit`` (scalar or per-ray)?"""
     tl = jnp.asarray(t_limit, jnp.float32)
     one = jnp.float32(1.0)
     zero = jnp.float32(0.0)
@@ -311,7 +247,7 @@ def any_hit(o, d, scn: SceneArrays, t_limit=_BIG, quirks: Quirks = DEFAULT,
     p = -oz * inv_dz
     occ = (p > _EPS) & (p < tl)
 
-    for k, z in zip(scn.square_k, scn.square_z):
+    for k, z in zip(tabs.square_k, tabs.square_z):
         rd = (np.float32(z) - oz) * inv_dz
         ix = ox + dx * rd
         iy = oy + dy * rd
@@ -320,34 +256,22 @@ def any_hit(o, d, scn: SceneArrays, t_limit=_BIG, quirks: Quirks = DEFAULT,
             ok = ok & (rd > _EPS)
         occ = occ | ok
 
-    if scn.sphere_centers.shape[0]:
-        centers = jnp.asarray(scn.sphere_centers)
-
+    if tabs.n_spheres:
         def sphere_body(i, occ):
-            c = jax.lax.dynamic_slice(centers, (i, 0), (1, 3))[0]
-            px, py, pz = ox - c[0], oy - c[1], oz - c[2]
+            cx, cy, cz = tabs.sphere(i)
+            px, py, pz = ox - cx, oy - cy, oz - cz
             b = _dot3(px, py, pz, dx, dy, dz)
             cc = _dot3(px, py, pz, px, py, pz) - one
             q = b * b - cc
             s = -b - jnp.sqrt(jnp.maximum(q, zero))
             return occ | ((q > zero) & (s < tl) & (s > _EPS))
 
-        occ = jax.lax.fori_loop(0, scn.sphere_centers.shape[0], sphere_body, occ)
+        occ = jax.lax.fori_loop(0, tabs.n_spheres, sphere_body, occ)
 
-    if triangles and scn.tri_v0.shape[0] >= _MXU_MIN_TRIANGLES:
-        # any valid hit < limit iff the minimum valid distance is < limit
-        from .pallas_tri import triangle_closest
-        shape = o.shape[:-1]
-        tt, _ = triangle_closest(o.reshape(-1, 3), d.reshape(-1, 3),
-                                 scn, quirks)
-        occ = occ | (tt.reshape(shape) < t_limit)
-    elif triangles and scn.tri_v0.shape[0]:
+    if tabs.n_tris:
         # division-free occlusion: all conditions on det-scaled quantities
-        table = jnp.asarray(_tri_table(scn))
-        one = jnp.float32(1.0)
-
         def tri_body(i, occ):
-            r = jax.lax.dynamic_slice(table, (i, 0), (1, 12))[0]
+            r = tabs.tri(i)
             det, un, vn, tn = _mt_quads_scalar(ox, oy, oz, dx, dy, dz, r)
             sg = jnp.where(det >= 0, one, -one)
             dd = det * sg
@@ -361,9 +285,48 @@ def any_hit(o, d, scn: SceneArrays, t_limit=_BIG, quirks: Quirks = DEFAULT,
                 ok = ok & (tn_s > _EPS * dd)
             return occ | ok
 
-        occ = jax.lax.fori_loop(0, scn.tri_v0.shape[0], tri_body, occ)
+        occ = jax.lax.fori_loop(0, tabs.n_tris, tri_body, occ)
 
     return occ
+
+
+def trace_ray(o, d, scn: SceneArrays, t_init=_BIG, quirks: Quirks = DEFAULT,
+              sphere_material: int = 3, triangles: bool = True,
+              tri_override=None) -> TraceResult:
+    """Closest-hit query for a ray batch o/d of shape (..., 3).
+
+    ``t_init`` reproduces the lmem variants' caller-initialised max distance
+    (SURVEY.md section 2 #6); plain variants pass the default 1e9.
+    ``sphere_material`` is 2 (mirror) in the simple tracer (spt.ocl:68) and
+    3 (diffuse) in all super tracers (pathtracer.ocl:103).
+    ``tri_override(o, d, t, m, nx, ny, nz, needs)`` replaces the triangle
+    scan (the uniform-grid DDA, models/trianglegrid.py).
+    """
+    override = None
+    if tri_override is not None:
+        def override(*carry):
+            return tri_override(o, d, *carry)
+    t, m, nx, ny, nz = closest_hit_xyz(
+        o[..., 0], o[..., 1], o[..., 2], d[..., 0], d[..., 1], d[..., 2],
+        scene_tables(scn, triangles), t_init, quirks, sphere_material,
+        override)
+    return TraceResult(t=t, normal=jnp.stack([nx, ny, nz], axis=-1),
+                       material=m)
+
+
+def any_hit(o, d, scn: SceneArrays, t_limit=_BIG, quirks: Quirks = DEFAULT,
+            triangles: bool = True):
+    """Occlusion query: does any primitive hit with t < t_limit?
+
+    Matches the reference's shadow test, which calls full TraceRay and checks
+    material != 0 (pathtracer.ocl:180).  The plain super tracer re-initialises
+    t to 1e9 inside TraceRay so *any* hit occludes, even beyond the light;
+    the bidirectional/metropolis variants pass the light distance as the cap
+    - expressed here via ``t_limit`` (scalar or per-ray array).
+    """
+    return occluded_xyz(o[..., 0], o[..., 1], o[..., 2],
+                        d[..., 0], d[..., 1], d[..., 2],
+                        scene_tables(scn, triangles), t_limit, quirks)
 
 
 def _tri_table(scn: SceneArrays) -> np.ndarray:
@@ -419,61 +382,3 @@ def _mt_test(ox, oy, oz, dx, dy, dz, r, quirks: Quirks):
     if not quirks.accept_negative_t:
         ok = ok & (rd > _EPS)
     return ok, rd
-
-
-# ---------------------------------------------------------------------------
-# MXU triangle path: one (R, 13) @ (13, 4*Nt) matmul + elementwise epilogue
-
-# Triangle-count threshold above which the Pallas MXU kernel replaces the
-# fused VPU scan.  Measured on one v5e at 1024^2/256spp with the 96-triangle
-# reference scene: scan 108 Mpaths/s, Pallas MXU 35, XLA MXU 17 - the scan's
-# full fusion (zero HBM temporaries) beats a K=16 matmul until the triangle
-# count is large enough to amortise the feature-array round-trip, so the
-# MXU path is reserved for big meshes.
-_MXU_MIN_TRIANGLES = 2048
-
-
-def _ray_features(ox, oy, oz, dx, dy, dz):
-    """(R, 13) feature vector (see _triangle_weights)."""
-    one = jnp.ones_like(ox)
-    return jnp.stack([
-        one, ox, oy, oz, dx, dy, dz,
-        dx * oy, dx * oz, dy * ox, dy * oz, dz * ox, dz * oy,
-    ], axis=-1)
-
-
-def _mxu_quads(ox, oy, oz, dx, dy, dz, scn: SceneArrays):
-    """(R, Nt) each of (det, u*det, v*det, t*det)."""
-    nt = scn.tri_v0.shape[0]
-    f = _ray_features(ox, oy, oz, dx, dy, dz)
-    q = jnp.dot(f, jnp.asarray(scn.tri_w),
-                preferred_element_type=jnp.float32)     # (R, 4*Nt)
-    q = q.reshape(q.shape[:-1] + (4, nt))
-    return q[..., 0, :], q[..., 1, :], q[..., 2, :], q[..., 3, :]
-
-
-def _mxu_valid(det, un, vn, tn, quirks: Quirks):
-    """Validity + distance from the quad scalars.  Conditions are evaluated
-    against det-scaled quantities where the sign allows, avoiding a divide
-    per pair: u in [0,1] etc. hold iff (u*det) and det agree in sign etc."""
-    ok = jnp.abs(det) >= _EPS
-    inv = 1.0 / jnp.where(ok, det, 1.0)
-    u = un * inv
-    v = vn * inv
-    rd = tn * inv
-    ok = ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
-    if not quirks.accept_negative_t:
-        ok = ok & (rd > _EPS)
-    return ok, rd
-
-
-
-
-def _cross(a, b):
-    return jnp.stack([
-        a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
-        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
-        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0],
-    ], axis=-1)
-
-

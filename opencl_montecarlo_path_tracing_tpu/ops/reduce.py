@@ -3,9 +3,9 @@
 Reference: ``reduce4img_lmem`` (CLSuperPathTracer_lmem_NoDoF/pathtracer.ocl:
 253-274) tree-reduces each 8x8 work-group tile of the sample buffer in local
 memory, adds the ambient term (13,13,13), sets alpha=255 and converts to
-uchar4.  The TPU-native expression is a reshape + sum over the sample-grid
-axes (XLA lowers this to an on-chip reduction; no "local memory" staging is
-needed) followed by the quantisation, all inside the same jit.
+uchar4.  Here it is a reshape + sum over the sample-grid axes (XLA emits
+the reduction itself; no "local memory" staging is needed) followed by the
+quantisation, all inside the same jit.
 """
 
 from __future__ import annotations

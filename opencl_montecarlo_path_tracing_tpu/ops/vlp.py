@@ -10,9 +10,9 @@ Reference (SURVEY.md section 2 #10/#12):
    16*sqrt(intensity), metropolispathtracer.ocl:551-554) and gathers only
    the shading point's cell (ocl vlpgrid:326-349).
 
-TPU design: emission is one batched trace over (nlights * n_vlp) rays; the
-dense gather is a fused fori scan over VLP blocks with rays on the vector
-lanes (no (rays x VLPs) HBM temporaries); the whole pipeline (emit ->
+Design: emission is one batched trace over (nlights * n_vlp) rays; the
+dense gather is a fused fori scan over VLP blocks with rays on the array
+axis (no (rays x VLPs) temporaries); the whole pipeline (emit ->
 reduce box -> build grid -> render) stays device-resident - including the
 VLP bounding-box reduction the reference reads back to the host
 mid-pipeline (vlpgrid .c:609, SURVEY.md section 3.5).
@@ -113,45 +113,22 @@ def emit_vlps(key, scn: SceneArrays, n_vlp: int, quirks: Quirks = DEFAULT,
     return jnp.concatenate(out, axis=0)
 
 
-# ray-count and VLP-count thresholds above which the Pallas MXU gather
-# kernel (ops/pallas_vlp.py) replaces the fused VPU scan on TPU: the kernel
-# amortises its feature/weight setup over the (rays x VLPs) pair volume
-_MXU_GATHER_MIN_RAYS = 2048
-_MXU_GATHER_MIN_VLPS = 64
-
-
-def gather_vlps(x, n, vlps, impl: str | None = None):
+def gather_vlps(x, n, vlps):
     """Dense VLP gather: sum over ALL VLPs of max(lamb, 0) * min(I/d^2, 1)
     with no shadow rays (Sample's VLP loop, ocl:166-187).
 
-    Two implementations with identical semantics (equality pinned by
-    tests/test_vlp.py::test_gather_mxu_matches_scan):
-
-    * ``scan``: fori scan over VLP blocks with rays on the vector lanes -
-      per-VLP scalars broadcast against (R,) arrays, everything fuses into
-      a single VMEM-resident pass (no (rays x VLPs) HBM temporaries, the
-      same structure as the triangle scan in ops/intersect.py).
-    * ``mxu``: Pallas kernel computing the two pair scalars as K=16 MXU
-      matmuls with a 7-op VPU epilogue (ops/pallas_vlp.py) - the default
-      on TPU for large batches (~3x the scan; docs/PERF.md).
+    A fori scan over VLP blocks with rays on the array axis: per-VLP
+    scalars broadcast against (R,) arrays, so no (rays x VLPs) temporary
+    is built (the same structure as the triangle scan in
+    ops/intersect.py).
     """
-    if impl is None:
-        use_mxu = (jax.default_backend() == "tpu"
-                   and int(np.prod(x.shape[:-1])) >= _MXU_GATHER_MIN_RAYS
-                   and vlps.shape[0] >= _MXU_GATHER_MIN_VLPS)
-    else:
-        use_mxu = impl == "mxu"
-    if use_mxu:
-        from .pallas_vlp import gather_vlps_mxu
-        return gather_vlps_mxu(x, n, vlps)
     xx, xy, xz = x[..., 0], x[..., 1], x[..., 2]
     nx, ny, nz = n[..., 0], n[..., 1], n[..., 2]
     n_dot_x = nx * xx + ny * xy + nz * xz
     x_sq = xx * xx + xy * xy + xz * xz
 
     # VLPs are consumed in blocks of _BLK per loop iteration (statically
-    # unrolled inside the body) to amortise slice overhead; the scan is
-    # VPU-compute-bound (block sizes 16 and 64 measure identically).
+    # unrolled inside the body) to amortise slice overhead.
     _BLK = 16
     nv = vlps.shape[0]
     pad = (-nv) % _BLK

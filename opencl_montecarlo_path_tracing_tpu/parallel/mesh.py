@@ -1,14 +1,17 @@
-"""Device-mesh parallelism: spp sharding over ICI with a film all-reduce.
+"""Device-mesh parallelism: spp sharding with a film all-reduce.
 
 The reference is a single-device codebase (one in-order cl_command_queue,
 ocl_boiler.h:150); its only scaling axes are the 2-D NDRange and the
 sample-parallel decomposition of CLSuperPathTracer_lmem_NoDoF
-(gws = (W*8, H*8), SURVEY.md section 2 #7).  The TPU-native generalisation
-(BASELINE.json north star) is: spp is a sharded batch axis over a
-``jax.sharding.Mesh``; every chip renders a disjoint sample window of the
-*same* logical sample space (counter-based RNG keyed on pixel*spp_total +
-sample, so the set of drawn samples is independent of the layout); the film
-is ``psum``-reduced over ICI.  No host round-trips anywhere in the pipeline.
+(gws = (W*8, H*8), SURVEY.md section 2 #7).  The generalisation here is:
+spp is a sharded batch axis over a ``jax.sharding.Mesh``; every device
+renders a disjoint sample window of the *same* logical sample space
+(counter-based RNG keyed on pixel*spp_total + sample, so the set of drawn
+samples is independent of the layout); the film is ``psum``-reduced over
+the device interconnect (NVLink between the cards of one host, where XLA
+hands collectives to NCCL).  No host round-trips anywhere in the pipeline.
+Every card reaches every other at the same rate, so the mesh takes
+``jax.devices()`` in order.
 
 The per-device sample windows make the sharded image equal to the
 single-device image up to float summation order (tested to atol 1e-3).
@@ -22,10 +25,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:  # jax >= 0.6 exposes shard_map at top level
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+shard_map = jax.shard_map
 
 from ..models.super import film_super
 from ..models.common import MAX_BOUNCES
@@ -89,7 +89,7 @@ def render_super_sharded(key, scene: Scene | SceneArrays, width: int,
                          quirks: Quirks = DEFAULT,
                          max_bounces: int = MAX_BOUNCES,
                          spp_offset: int = 0, spp_total: int | None = None):
-    """Multi-chip render of the full scene; returns the replicated
+    """Multi-device render of the full scene; returns the replicated
     pre-ambient film (H, W, 3).  ``spp_offset``/``spp_total`` select a
     sample window for checkpointed accumulation (the offset is traced, so
     every window of a resumable render shares one compiled program)."""
@@ -116,8 +116,8 @@ def render_simple_sharded(key, width: int, height: int, spp: int,
     """spp-sharded render of the multi-bounce mirror tracer
     (CLSimplePathTracer, the only genuinely multi-bounce GPU variant -
     CLSimplePathTracer/CLSimplePathTracer.c:85): each device renders its
-    sample window of the business-card scene (the 5-bounce megakernel
-    already takes spp windows) and films psum over ICI."""
+    sample window of the business-card scene and films psum over the
+    mesh."""
     from ..models.simple import film_simple
     if mesh is None:
         mesh = make_spp_mesh()
@@ -147,7 +147,7 @@ def render_bidirectional_sharded(key, scene, width: int, height: int,
     n_vlp/n work-item window of the lightTracer pass (ops/vlp.py::
     emit_vlps gi window - every draw keys on the GLOBAL work-item id,
     so window rows are bit-identical to the full emission) and the VLP
-    table is ``all_gather``-ed over ICI, reassembled to the reference's
+    table is ``all_gather``-ed over the mesh, reassembled to the reference's
     vlp[gi + l*n_vlp] layout.  Emission work scales 1/n instead of
     being replicated per device; the film is bit-exact vs replicated
     (tests/test_parallel.py pins all three: sharded == replicated ==
@@ -217,8 +217,7 @@ def render_metropolis_sharded(key, scene, width: int, height: int,
     GLOBAL chain index, so window rows are bit-identical) and the VLP
     table is ``all_gather``-ed and reassembled to the reference's
     light-major, slot-minor layout.  This removes the n-fold replicated
-    chain work (the sequential bottleneck at default configs:
-    ~106 ms/render, docs/PERF.md).
+    chain work (the sequential part of the render at default configs).
 
     ``light_pass="replicated"``: every device derives the identical
     full VLP set (chains keyed on (key, chain id), no communication)."""
@@ -285,7 +284,7 @@ def render_trianglegrid_sharded(key, scene, width: int, height: int,
     """spp-sharded grid-accelerated render: every device builds the SAME
     triangle grid on-device (deterministic sort-based build, ops/grid.py -
     identical everywhere, no communication) and renders its sample window;
-    films psum over ICI."""
+    films psum over the mesh."""
     from ..models.trianglegrid import film_trianglegrid
     from ..ops import grid as gridmod
     scn = prep_scene(scene) if isinstance(scene, Scene) else scene
@@ -311,10 +310,10 @@ def render_sample_parallel_sharded(key, scene, width: int, height: int,
                                    quirks: Quirks = DEFAULT,
                                    max_bounces: int = MAX_BOUNCES):
     """Image-row-sharded NoDoF render: the sample-parallel variant's natural
-    TPU axis is the big (H*sg, W*sg) sample buffer, so each device produces
+    axis is the big (H*sg, W*sg) sample buffer, so each device produces
     one horizontal *pixel-row* band (samples AND reduction stay on-device,
-    models/sample_parallel.py) and the final uint8 image is all-gathered over
-    ICI.  Band content equals the single-device image exactly (ray ids are
+    models/sample_parallel.py) and the final uint8 image is all-gathered
+    over the mesh.  Band content equals the single-device image exactly (ray ids are
     keyed on the global pixel index)."""
     from ..models.sample_parallel import sample_buffer
     from ..ops.reduce import reduce_samples
@@ -357,7 +356,7 @@ def render_super_sharded_2d(key, scene: Scene | SceneArrays, width: int,
                             max_bounces: int = MAX_BOUNCES):
     """Render sharded over BOTH the image-row axis and the spp axis:
     each device renders a (rows/n_y) band for its spp window; films are
-    psum-reduced over 'spp' and all-gathered over 'y' (both over ICI).
+    psum-reduced over 'spp' and all-gathered over 'y'.
     Sample content is identical to the single-device render."""
     scn = prep_scene(scene) if isinstance(scene, Scene) else scene
     ny = mesh.shape["y"]
@@ -397,7 +396,7 @@ def render_bidirectional_sharded_2d(key, scene, width: int, height: int,
     the VLP table is ``all_gather``-ed over both axes and reassembled to
     the reference layout, then each device renders its (row band, spp
     window) and the film is psum('spp') + row-gathered over 'y' - all
-    collectives over ICI, no replicated emission anywhere.  Bit-exact
+    collectives over the mesh, no replicated emission anywhere.  Bit-exact
     vs the single-device render up to psum summation order
     (tests/test_parallel.py)."""
     from ..models.bidirectional import film_bidirectional

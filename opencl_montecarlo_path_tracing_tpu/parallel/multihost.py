@@ -10,13 +10,15 @@ from ``jax.devices()`` (all devices, across hosts).
 Typical launch (one process per host):
 
     from opencl_montecarlo_path_tracing_tpu.parallel import multihost, mesh
-    multihost.initialize()                  # env-driven (TPU pods) or explicit
-    m = mesh.make_spp_mesh()                # global mesh over all chips
+    multihost.initialize("host0:1234", num_processes=2, process_id=0)
+    m = mesh.make_spp_mesh()                # global mesh over all devices
     film = mesh.render_super_sharded(key, scene, 1024, 1024, 4096, m)
     # film is replicated; host 0 writes the PAM file
 
-The film psum rides ICI within a slice and DCN across slices; there are no
-other collectives in the pipeline (SURVEY.md section 2.11 table, last row).
+The film psum rides NVLink between the cards of one host and the network
+across hosts; there are no other collectives in the pipeline (SURVEY.md
+section 2.11 table, last row).  A cluster with no environment that JAX
+can read needs the explicit coordinator address, process count and id.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ def initialize(coordinator_address: str | None = None,
     missing-environment ValueError is also swallowed - that is the normal
     single-process case.  With EXPLICIT arguments every failure propagates:
     a wrong coordinator address or process id must not silently degrade a
-    pod launch to N independent single-process renders."""
+    multi-host launch to N independent single-process renders."""
     if jax.distributed.is_initialized():
         return  # idempotent (works even after the backend came up)
     env_driven = (coordinator_address is None and num_processes is None

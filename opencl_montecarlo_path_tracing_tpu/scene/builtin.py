@@ -78,8 +78,8 @@ def ripple_sheet_mesh(n_major: int, n_minor: int, min_det: float = 0.02,
     |e0 x e2| clears it; the reference's own 96-triangle scene keeps a
     26x margin (min 0.026).  Dense tori shrink their triangles
     quadratically with resolution and fall under the cutoff by 20k
-    triangles - invisible to ANY faithful implementation (round-4
-    finding, docs/PERF.md).  This sheet instead grows its world size
+    triangles - invisible to ANY faithful implementation (PERF.md,
+    Findings).  This sheet instead grows its world size
     with density: vertices sit at ``depth + ripple`` along the pixel-grid
     ray directions (so it exactly covers the frame at every density) and
     ``depth`` is scaled until min |e0 x e2| >= ``min_det`` (det grows
@@ -129,7 +129,7 @@ def ripple_sheet_mesh(n_major: int, n_minor: int, min_det: float = 0.02,
 def large_mesh_scene(n_major: int = 144, n_minor: int = 72) -> Scene:
     """The demo scene with its triangles replaced by a dense VISIBLE
     mesh (default 2*144*72 = 20736 triangles): the standard large-mesh
-    acceleration benchmark (docs/PERF.md "Large meshes"; the reference's
+    acceleration benchmark (bench.py's large-mesh rows; the reference's
     trianglegrid variant exists for exactly this regime,
     CLSuperPathTracer_trianglegrid/CLSuperPathTracer.c:15 MAX_TRIANGLES).
 

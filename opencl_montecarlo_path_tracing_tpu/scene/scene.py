@@ -1,7 +1,7 @@
 """SoA scene container: bitmap -> dense primitive expansion + AABBs.
 
 The reference kernels loop over the full 9x19 bitmap per ray
-(pathtracer.ocl:73-108, 171 slots per class); on TPU we expand the set bits
+(pathtracer.ocl:73-108, 171 slots per class); here we expand the set bits
 once on the host into dense center arrays, so the per-ray work is
 proportional to the *actual* primitive count (the main scene has 2 spheres
 and 4 squares).  The expansion order matches the reference loops

@@ -21,7 +21,7 @@ Keyword options extend the reference surface: --scene-dir, --spp, --seed,
 (per-stage timing of the VLP pipelines), --dynamic-grid-res (the vlpgrid
 reference-parity grid mode), --shard N|RxS (multi-device rendering over a
 jax.sharding.Mesh - spp or rows x spp, VLP light passes sharded too).  The lws0 positional of the simple
-tracer is accepted and ignored (TPU has no work-group size); device
+tracer is accepted and ignored (XLA picks its own block sizes); device
 selection honours PT_PLATFORM / PT_DEVICE like the reference's OCL_PLATFORM
 / OCL_DEVICE env vars (ocl_boiler.h:54-131).
 
@@ -364,6 +364,8 @@ def main(argv=None):
         timer.record("rendering (host)", (time.perf_counter() - t0) * 1e3,
                      items=w * h, item_label="float", data_size=w * h * 4)
     else:
+        from .device import configure_compile_cache
+        configure_compile_cache()
         _select_device()
         from ..scene.scene import load_scene
 

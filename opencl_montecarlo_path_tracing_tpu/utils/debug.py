@@ -3,7 +3,7 @@
 The reference ships commented-out in-kernel printfs (DDA traversal state,
 CLSuperPathTracer_trianglegrid/pathtracer.ocl:192) and a disabled grid
 dump kernel (printTrianglesGrid, ocl:332-346, neutered by an early return
-at :333).  The TPU analog is ``jax.debug.print`` behind an env flag: set
+at :333).  The analog here is ``jax.debug.print`` behind an env flag: set
 ``PT_KERNEL_DEBUG=1`` to stream aggregate per-call statistics from inside
 jitted programs.  Aggregates, not per-lane dumps - a wavefront batch has
 10^5-10^6 lanes where the reference had one work item under the

@@ -1,5 +1,5 @@
-"""Image-quality metrics for golden-render validation (SURVEY.md section 4,
-BASELINE.json metric: RMSE vs SimpleCPUTracer; spp to fixed RMSE)."""
+"""Image-quality metrics for golden-render validation (SURVEY.md section 4:
+RMSE vs SimpleCPUTracer; spp to fixed RMSE)."""
 
 from __future__ import annotations
 
@@ -40,3 +40,24 @@ def spp_to_rmse(render_at_spp, reference_img, target: float,
         if r <= target:
             return spp, history
     return None, history
+
+
+def film_agreement(a, b, rel: float = 1e-4) -> dict:
+    """How closely film ``a`` matches film ``b`` (both (H, W, 3)):
+    ``within`` is the share of pixels whose largest channel difference
+    is at most ``rel`` times the largest magnitude in ``b``;
+    ``mean_rel`` is the relative difference of the film means."""
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    scale = float(np.abs(b).max())
+    d = np.abs(a - b).max(axis=-1)
+    mb = float(b.mean())
+    return {"within": float((d <= rel * scale).mean()),
+            "mean_rel": abs(float(a.mean()) - mb) / max(abs(mb), 1e-30),
+            "max_abs": float(d.max()), "scale": scale}
+
+
+def rgba8_agreement(a, b, tol: int = 1) -> float:
+    """Share of pixels whose RGBA8 channels all differ by at most ``tol``."""
+    d = np.abs(np.asarray(a, np.int32) - np.asarray(b, np.int32))
+    return float((d.max(axis=-1) <= tol).mean())

@@ -166,3 +166,27 @@ def film_to_rgba8(film, ambient=(13.0, 13.0, 13.0), wrap: bool = False) -> np.nd
     out[..., :3] = rgb
     out[..., 3] = 255
     return out
+
+
+def save_png(path: str, rgba) -> None:
+    """Write an (H, W, 4) uint8 image as an RGBA PNG (zlib only; a
+    preview format beside the byte-exact PAM)."""
+    import struct
+    import zlib
+
+    rgba = np.ascontiguousarray(np.asarray(rgba, np.uint8))
+    h, w, c = rgba.shape
+    if c != 4:
+        raise ValueError(f"save_png wants (H, W, 4) RGBA, got {rgba.shape}")
+    raw = np.concatenate([np.zeros((h, 1), np.uint8),
+                          rgba.reshape(h, w * 4)], axis=1).tobytes()
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as fp:
+        fp.write(b"\x89PNG\r\n\x1a\n"
+                 + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 6, 0, 0, 0))
+                 + chunk(b"IDAT", zlib.compress(raw, 9))
+                 + chunk(b"IEND", b""))

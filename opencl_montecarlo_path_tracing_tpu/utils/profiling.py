@@ -6,7 +6,7 @@ The reference enables CL_QUEUE_PROFILING_ENABLE on every queue
     rendering : 262144 pixels in 12.3ms: 0.085 GB/s
 
 (CLSuperPathTracer.c:321-325; 7-stage variant
-CLSuperMetropolisPathTracer_vlpgrid/...c:673-705).  The TPU equivalent is
+CLSuperMetropolisPathTracer_vlpgrid/...c:673-705).  The equivalent here is
 wall-clock around ``jax.block_until_ready`` per stage; ``StageTimer`` keeps
 the reporting format (ms + derived GB/s = data_size / 1e6 / ms).
 """

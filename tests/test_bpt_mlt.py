@@ -118,7 +118,7 @@ def test_bidirectional_matches_oracle():
     v[live, 2] = rng.uniform(1.0, 6.0, 12)
     v[live, 3] = rng.uniform(1.0, 8.0, 12)
     from opencl_montecarlo_path_tracing_tpu.core.quirks import DEFAULT
-    tpu = np.asarray(jax.jit(lambda k: film_bidirectional(
+    jx = np.asarray(jax.jit(lambda k: film_bidirectional(
         k, scn, w, r0 + rows, spp, 0, spp, 8, DEFAULT,
         precomputed_vlps=jnp.asarray(v)))(make_key(61)))[r0:] / spp
     orc = render_with_vlps(scene, v, w, rows, spp=spp,
@@ -127,9 +127,9 @@ def test_bidirectional_matches_oracle():
     scale = max(1e-6, float(np.abs(orc).mean()))
     # content guard: real per-pixel structure, not a constant field
     assert float(np.asarray(orc).std()) > 0.05 * scale
-    err = float(np.sqrt(((tpu - orc) ** 2).mean()))
+    err = float(np.sqrt(((jx - orc) ** 2).mean()))
     assert err / scale < 0.12, (err, scale)
-    c = np.corrcoef(tpu.reshape(-1), orc.reshape(-1))[0, 1]
+    c = np.corrcoef(jx.reshape(-1), orc.reshape(-1))[0, 1]
     assert c > 0.95, c
 
 

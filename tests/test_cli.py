@@ -1,3 +1,4 @@
+import dataclasses
 import os
 import subprocess
 import sys
@@ -5,10 +6,26 @@ import sys
 import numpy as np
 import pytest
 
+from opencl_montecarlo_path_tracing_tpu.scene.builtin import (
+    procedural_super_scene, torus_mesh, write_scene_files)
 from opencl_montecarlo_path_tracing_tpu.utils import pam
-from tests.conftest import REFERENCE_DIR, reference_available
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def scene_dir(tmp_path_factory):
+    """The built-in super scene in the reference's text formats (96
+    triangles, 2 lights), plus the 32-triangle torus.txt the reference
+    ships beside triangles.txt for the mesh swap."""
+    scene = procedural_super_scene()
+    d = tmp_path_factory.mktemp("scene")
+    write_scene_files(scene, str(d))
+    torus = tmp_path_factory.mktemp("torus")
+    write_scene_files(dataclasses.replace(
+        scene, triangles=torus_mesh(n_major=4, n_minor=4)), str(torus))
+    os.replace(torus / "triangles.txt", d / "torus.txt")
+    return str(d)
 
 
 def run_cli(args, cwd, extra_env=None):
@@ -54,12 +71,10 @@ def test_cli_pam16(tmp_path):
     assert int(np.asarray(img.data)[..., 3].min()) == 65535
 
 
-@pytest.mark.skipif(not reference_available(), reason="reference not mounted")
-def test_cli_kernel_debug_prints(tmp_path):
+def test_cli_kernel_debug_prints(tmp_path, scene_dir):
     """PT_KERNEL_DEBUG=1 streams aggregate DDA statistics from inside the
     jitted grid traversal - the analog of the reference's commented device
     printfs (trianglegrid/pathtracer.ocl:192); off by default."""
-    scene_dir = os.path.join(REFERENCE_DIR, "CLSuperPathTracer_trianglegrid")
     args = ["trianglegrid", "24", "8", "--spp", "1", "--seed", "1",
             "--scene-dir", scene_dir]
     r = run_cli(args, cwd=str(tmp_path), extra_env={"PT_KERNEL_DEBUG": "1"})
@@ -79,9 +94,7 @@ def test_cli_simplecpu(tmp_path):
     assert (img.width, img.height) == (16, 16)
 
 
-@pytest.mark.skipif(not reference_available(), reason="reference not mounted")
-def test_cli_super_on_reference_scene(tmp_path):
-    scene_dir = os.path.join(REFERENCE_DIR, "CLSuperPathTracer")
+def test_cli_super_on_reference_scene(tmp_path, scene_dir):
     r = run_cli(["super", "24", "24", "--spp", "2", "--seed", "3",
                  "--scene-dir", scene_dir], cwd=str(tmp_path))
     assert r.returncode == 0, r.stderr
@@ -90,9 +103,7 @@ def test_cli_super_on_reference_scene(tmp_path):
     assert np.asarray(img.data)[..., 3].min() == 255
 
 
-@pytest.mark.skipif(not reference_available(), reason="reference not mounted")
-def test_cli_all_variants_smoke(tmp_path):
-    scene_dir = os.path.join(REFERENCE_DIR, "CLSuperPathTracer")
+def test_cli_all_variants_smoke(tmp_path, scene_dir):
     variants = [
         ["superlmem", "16", "16"],
         ["nodof", "8", "8"],
@@ -109,9 +120,7 @@ def test_cli_all_variants_smoke(tmp_path):
         os.unlink(tmp_path / "result.ppm")
 
 
-@pytest.mark.skipif(not reference_available(), reason="reference not mounted")
-def test_cli_profile_stages(tmp_path):
-    scene_dir = os.path.join(REFERENCE_DIR, "CLSuperMetropolisPathTracer_vlpgrid")
+def test_cli_profile_stages(tmp_path, scene_dir):
     r = run_cli(["metropolis_vlpgrid", "8", "8", "16", "2", "3.0",
                  "--spp", "1", "--seed", "2", "--scene-dir", scene_dir,
                  "--profile-stages"], cwd=str(tmp_path))
@@ -122,14 +131,11 @@ def test_cli_profile_stages(tmp_path):
     assert "rendering" in out
 
 
-@pytest.mark.skipif(not reference_available(), reason="reference not mounted")
-def test_cli_profile_stages_dynamic_grid_res(tmp_path):
-    """r3 VERDICT #5: with --dynamic-grid-res the staged vlpgrid report
+def test_cli_profile_stages_dynamic_grid_res(tmp_path, scene_dir):
+    """With --dynamic-grid-res the staged vlpgrid report
     shows the reference's exact 7-stage list (vlpgrid .c:691-705) in
     order, including the blocking host box read (.c:609) and the
     box-derived 'VLPs grid size' printout (.c:639)."""
-    scene_dir = os.path.join(REFERENCE_DIR,
-                             "CLSuperMetropolisPathTracer_vlpgrid")
     r = run_cli(["metropolis_vlpgrid", "8", "8", "16", "2", "3.0",
                  "--spp", "1", "--seed", "2", "--scene-dir", scene_dir,
                  "--profile-stages", "--dynamic-grid-res"],
@@ -157,10 +163,8 @@ def test_cli_quirks_mode(tmp_path):
     assert r.returncode == 0, r.stderr
 
 
-@pytest.mark.skipif(not reference_available(), reason="reference not mounted")
-def test_cli_torus_mesh_swap(tmp_path):
+def test_cli_torus_mesh_swap(tmp_path, scene_dir):
     """The reference workflow 'swap in torus.txt by renaming' is a flag."""
-    scene_dir = os.path.join(REFERENCE_DIR, "CLSuperPathTracer")
     r = run_cli(["super", "16", "16", "--spp", "1", "--seed", "3",
                  "--scene-dir", scene_dir, "--triangles-file", "torus.txt"],
                 cwd=str(tmp_path))
@@ -175,9 +179,7 @@ def test_cli_missing_scene_dir_errors_cleanly(tmp_path):
     assert "missing scene file" in r.stderr
 
 
-@pytest.mark.skipif(not reference_available(), reason="reference not mounted")
-def test_cli_checkpoint_resume(tmp_path):
-    scene_dir = os.path.join(REFERENCE_DIR, "CLSuperPathTracer")
+def test_cli_checkpoint_resume(tmp_path, scene_dir):
     ck = str(tmp_path / "film.npz")
     args = ["super", "16", "16", "--spp", "4", "--seed", "5",
             "--scene-dir", scene_dir, "--checkpoint", ck,
@@ -199,11 +201,10 @@ def test_cli_checkpoint_resume(tmp_path):
     np.testing.assert_allclose(img1.astype(int), img3.astype(int), atol=1)
 
 
-def test_cli_shard(tmp_path):
+def test_cli_shard(tmp_path, scene_dir):
     """--shard routes through the parallel/mesh.py sharded renderers on a
     virtual 8-device CPU mesh: 1-D spp sharding, 2-D rows x spp, and a
-    VLP variant whose light pass shards too (r3 VERDICT #3 surface)."""
-    scene_dir = os.path.join(REFERENCE_DIR, "CLSuperPathTracer")
+    VLP variant whose light pass shards too."""
     env = {"XLA_FLAGS": "--xla_force_host_platform_device_count=8"}
     r = run_cli(["super", "16", "16", "--spp", "8", "--seed", "3",
                  "--scene-dir", scene_dir, "--shard", "8"],
@@ -218,8 +219,7 @@ def test_cli_shard(tmp_path):
     assert os.path.exists(tmp_path / "result.ppm")
 
 
-def test_cli_shard_errors(tmp_path):
-    scene_dir = os.path.join(REFERENCE_DIR, "CLSuperPathTracer")
+def test_cli_shard_errors(tmp_path, scene_dir):
     env = {"XLA_FLAGS": "--xla_force_host_platform_device_count=8"}
     # more devices than exist
     r = run_cli(["super", "16", "16", "--spp", "8", "--scene-dir",
@@ -248,11 +248,10 @@ def test_cli_shard_errors(tmp_path):
     assert r.returncode == 1 and "incompatible" in r.stderr
 
 
-def test_cli_shard_checkpoint_resume(tmp_path):
+def test_cli_shard_checkpoint_resume(tmp_path, scene_dir):
     """--checkpoint + --shard N (round-5): the sharded render accumulates
     in checkpointed windows, resumes to the same image, and matches the
     unsharded checkpointed render."""
-    scene_dir = os.path.join(REFERENCE_DIR, "CLSuperPathTracer")
     env = {"XLA_FLAGS": "--xla_force_host_platform_device_count=8"}
     ck = str(tmp_path / "film.npz")
     args = ["super", "16", "16", "--spp", "8", "--seed", "5",

@@ -2,21 +2,21 @@
 
 The NumPy oracles consume the SAME threefry streams as the JAX integrators
 (oracle ``key=`` mode), so every sample is identical and the comparison
-isolates estimator bias from Monte-Carlo noise.  The BASELINE.json quality
-criterion is RMSE < 1e-3 on the display scale ((film/spp * 64) / 255 around
+isolates estimator bias from Monte-Carlo noise.  The quality criterion
+(utils/metrics.py) is RMSE < 1e-3 on the display scale ((film/spp * 64) / 255 around
 the ambient term); with common random numbers the agreement is float-
 rounding-level at ANY spp.  Contract: >= 98% of pixels agree below 1e-5
 on the display scale (two orders under the criterion).  The remaining
 tail is razor-edge TIES - a sphere-silhouette discriminant or hit-vs-sky
 comparison within an ulp flips between XLA's fused f32 and NumPy's, and
 that sample's whole path diverges (13/1024 pixels in the simple sphere
-field; the same class separates XLA-CPU from XLA-TPU - docs/PERF.md).
+field; the same class separates XLA on the CPU from XLA and the fused
+kernel on the GPU - chip_smoke.py).
 
 Windows: the camera frame is fixed for 512x512, so a small render at the
 origin is ALL SKY and an agreement test there is vacuous for the
-estimator body (round-2 finding; see tests/test_megakernel.py
-CONTENT_ROW).  Every comparison here renders a band that contains real
-content - floor + diffuse geometry for the super scene (rows 372+,
+estimator body (see tests/test_pallas_super.py CONTENT_ROW).  Every
+comparison here renders a band that contains real content - floor + diffuse geometry for the super scene (rows 372+,
 cols 256+), the sphere field for the simple scene (rows 192+) - and
 asserts the content is actually there.
 
@@ -50,7 +50,7 @@ SIMPLE_ROW, SIMPLE_W = 192, 64
 
 
 def display_diff(jax_film, oracle_film, spp):
-    """Max per-pixel difference on the BASELINE display scale."""
+    """Max per-pixel difference on the display scale."""
     d = np.abs(np.asarray(jax_film) - oracle_film)
     return float((d / spp * 64.0 / 255.0).max())
 

@@ -252,62 +252,6 @@ def test_sharded_metropolis_matches_single():
     np.testing.assert_allclose(sharded, single, rtol=0, atol=2e-3)
 
 
-def test_sharded_blocked_and_stream_megakernel_interpret():
-    """r3 VERDICT #4: the blocked AND stream megakernel tiers running
-    INSIDE shard_map on the full 8-device CPU mesh (interpret mode,
-    shrunk tile constants so a 120-tri torus spans 4 segments) == the
-    single-device tier film.  Pins that the axis_index-derived traced
-    spp_offset reaches the kernel's scalar prefetch correctly and that
-    the DMA/take-list machinery composes with SPMD partitioning."""
-    import jax.numpy as jnp
-    from jax.sharding import PartitionSpec as P
-    try:
-        shard_map = jax.shard_map
-    except AttributeError:
-        from jax.experimental.shard_map import shard_map
-    from opencl_montecarlo_path_tracing_tpu.ops import pallas_super as M
-    from opencl_montecarlo_path_tracing_tpu.ops.intersect import prep_scene
-    from opencl_montecarlo_path_tracing_tpu.scene.builtin import torus_mesh
-    from opencl_montecarlo_path_tracing_tpu.scene.scene import Scene
-    from opencl_montecarlo_path_tracing_tpu.core.quirks import DEFAULT
-
-    scn = prep_scene(Scene(
-        sphere_centers=np.zeros((0, 3), np.float32),
-        square_kj=np.zeros((0, 2), np.float32),
-        triangles=torus_mesh(center=(17.959, 4.252, 10.25),
-                             n_major=10, n_minor=6),
-        lights=np.array([[10, 4, 10, 200]], np.float32),
-    ))
-    key = make_key(38)
-    mesh = make_spp_mesh(8)
-    n = 8
-    spp = 8
-    kw = dict(row_offset=150, rows=8, quirks=DEFAULT, interpret=True)
-    prev = M._TRI_BLOCK, M._MACRO, M._SEG, M._IGRP
-    M._TRI_BLOCK, M._MACRO, M._SEG, M._IGRP = 8, 2, 4, 2  # 15 blocks,
-    try:                                                  # 4 segments
-        for tier in ("force_blocked", "force_stream"):
-            single = np.asarray(M.film_super_mega(
-                key, scn, 40, 158, spp, spp_total=spp, **{tier: True},
-                **kw))
-
-            def body(k, _tier=tier):
-                idx = jax.lax.axis_index("spp")
-                film = M.film_super_mega(
-                    k, scn, 40, 158, spp // n,
-                    spp_offset=idx * jnp.uint32(spp // n), spp_total=spp,
-                    **{_tier: True}, **kw)
-                return jax.lax.psum(film, "spp")
-
-            sharded = np.asarray(jax.jit(shard_map(
-                body, mesh=mesh, in_specs=(P(),), out_specs=P(),
-                check_vma=False))(key))
-            assert single.var() > 1e-5          # mesh visible, not vacuous
-            np.testing.assert_allclose(sharded, single, rtol=0, atol=2e-5)
-    finally:
-        M._TRI_BLOCK, M._MACRO, M._SEG, M._IGRP = prev
-
-
 def test_sharded_2d_vlp_integrators_match_single():
     """2-D (rows x spp) sharding for the VLP integrators with the light
     pass sharded over the FLATTENED 4x2 device set: bidirectional and

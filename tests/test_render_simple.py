@@ -40,15 +40,15 @@ def test_matches_oracle():
     key = make_key(123)
     w, rows, r0 = 64, 16, 192   # the sphere field (content, not sky)
     spp = 256
-    film_tpu = np.asarray(render_simple(key, w, r0 + rows,
+    film_jax = np.asarray(render_simple(key, w, r0 + rows,
                                         spp=spp))[r0:] / spp
     film_orc = render_oracle(w, rows, spp=spp, seed=9, row_offset=r0) / spp
     assert float(np.asarray(film_orc).var()) > 1e-4
     # average per-sample radiance is O(3.5 * a few); Monte-Carlo noise at
     # 256 spp dominates any residual -> demand close agreement
-    err = rmse(film_tpu, film_orc)
+    err = rmse(film_jax, film_orc)
     scale = max(1e-6, float(np.abs(film_orc).mean()))
     assert err / scale < 0.08, (err, scale)
     # and the images are actually correlated (not both ~constant)
-    c = np.corrcoef(film_tpu.reshape(-1), film_orc.reshape(-1))[0, 1]
+    c = np.corrcoef(film_jax.reshape(-1), film_orc.reshape(-1))[0, 1]
     assert c > 0.98, c

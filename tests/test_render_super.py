@@ -48,15 +48,15 @@ def test_matches_oracle_super():
     key = make_key(11)
     w, rows, r0 = 296, 12, 372
     spp = 128
-    tpu = np.asarray(render_super(key, scene, w, r0 + rows,
+    jx = np.asarray(render_super(key, scene, w, r0 + rows,
                                   spp=spp))[r0:] / spp
     orc = render_oracle_super(scene, w, rows, spp=spp, seed=5,
                               row_offset=r0) / spp
     assert float(np.asarray(orc).var()) > 1e-4  # content, not sky
-    err = rmse(tpu, orc)
+    err = rmse(jx, orc)
     scale = max(1e-6, float(np.abs(orc).mean()))
     assert err / scale < 0.08, (err, scale)
-    c = np.corrcoef(tpu.reshape(-1), orc.reshape(-1))[0, 1]
+    c = np.corrcoef(jx.reshape(-1), orc.reshape(-1))[0, 1]
     assert c > 0.98, c
 
 

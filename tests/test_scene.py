@@ -101,3 +101,25 @@ def test_primary_rays_match_oracle_ray_gen():
                                   + right * (jj + r[3])[:, None] + eye) * 16)
     np.testing.assert_allclose(np.asarray(o_jax), o_np, atol=1e-5)
     np.testing.assert_allclose(np.asarray(d_jax), d_np, atol=1e-6)
+
+
+def test_primary_rays_xyz_matches_primary_rays():
+    """The per-component camera the fused kernel runs equals the stacked
+    camera of the XLA path up to the norm's summation order (1 ulp)."""
+    import numpy as np
+    from opencl_montecarlo_path_tracing_tpu.core.camera import (
+        make_camera, primary_rays, primary_rays_xyz,
+    )
+
+    f32 = np.float32
+    rng = np.random.default_rng(1)
+    n = 256
+    ii = rng.integers(0, 1024, n).astype(f32)
+    jj = rng.integers(0, 1024, n).astype(f32)
+    r = rng.random((4, n), f32)
+    cam = make_camera(z_sign=-1.0)
+    o, d = primary_rays(cam, ii, jj, *r)
+    xyz = primary_rays_xyz(cam, ii, jj, *r)
+    np.testing.assert_array_equal(np.stack(xyz[:3], -1), np.asarray(o))
+    np.testing.assert_array_max_ulp(np.stack(xyz[3:], -1), np.asarray(d),
+                                    maxulp=1)

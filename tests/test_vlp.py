@@ -121,28 +121,8 @@ def test_vlp_bounds():
     np.testing.assert_allclose(np.asarray(hi), [1 + r, 2 + r, 3 + r])
 
 
-def test_gather_mxu_matches_scan():
-    """The Pallas MXU gather (interpret mode on CPU) == the VPU scan on a
-    batch big and awkward enough to exercise ray and VLP tile padding."""
-    from opencl_montecarlo_path_tracing_tpu.ops.pallas_vlp import (
-        gather_vlps_mxu)
-    rng = np.random.default_rng(11)
-    R, Vn = 777, 130   # neither a tile multiple
-    x = rng.normal(5, 3, (R, 3)).astype(np.float32)
-    n = rng.normal(0, 1, (R, 3)).astype(np.float32)
-    n /= np.linalg.norm(n, axis=-1, keepdims=True)
-    vlps = rng.normal(5, 3, (Vn, 4)).astype(np.float32)
-    vlps[:, 3] = np.abs(vlps[:, 3])
-    vlps[::5, 3] = 0.0
-    scan = np.asarray(V.gather_vlps(jnp.asarray(x), jnp.asarray(n),
-                                    jnp.asarray(vlps), impl="scan"))
-    mxu = np.asarray(gather_vlps_mxu(jnp.asarray(x), jnp.asarray(n),
-                                     jnp.asarray(vlps), interpret=True))
-    np.testing.assert_allclose(mxu, scan, rtol=2e-4, atol=2e-4)
-
-
 def test_vlp_grid_dynamic_res_reference_formula():
-    """r3 VERDICT #5: the opt-in dynamic grid resolution reproduces the
+    """The opt-in dynamic grid resolution reproduces the
     reference's box-derived formula (vlpgrid .c:629-636) on a known VLP
     set: res_i = clamp(floor(size_i * cbrt(CSM * N_VLP / prod(size))),
     1, 128) with the anisotropic box, including the per-axis clamps."""

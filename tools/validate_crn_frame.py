@@ -1,25 +1,26 @@
-"""Frame-wide common-random-number validation (r4 VERDICT #4).
+"""Frame-wide common-random-number validation.
 
 The band CRN runs (tools/validate_golden.py, tests/test_crn.py) pin
-oracle-vs-TPU estimator equality on 296x16 / 128x16 content bands -
+oracle-vs-JAX estimator equality on 296x16 / 128x16 content bands -
 ~3% of the frame.  This tool runs ONE full 512x512 frame per integrator
-family on the real chip against the NumPy oracle consuming IDENTICAL
+family on the device against the NumPy oracle consuming IDENTICAL
 threefry streams, so the residual contains no Monte-Carlo noise - it is
 estimator bias + float rounding, except at the documented razor-edge-tie
 class (~0.3% of pixels: horizon floor hits at t~1e6 and silhouette
 discriminant ties, where any two float implementations - including
-XLA-CPU vs XLA-TPU - flip whole occlusion units; docs/PERF.md).
+XLA on the CPU vs the fused kernel on the GPU - flip whole occlusion
+units).
 
 Per family it reports, on the display scale ((film/spp*64)/255):
   - RMSE over the whole frame (tie class included)
   - the TIE-EXCLUDED p99.5 quantile of the per-pixel max-channel
-    difference, asserted < 1e-5 (the BASELINE.json "RMSE < 1e-3"
-    criterion with two orders of margin)
+    difference, asserted < 1e-5 (the "RMSE < 1e-3" quality criterion
+    with two orders of margin)
   - the frame-wide razor-edge fraction: pixels with dm > 1e-4
     (rounding sits ~1e-7; tie flips sit ~0.1), expected <= ~0.5%
 
-Appends/replaces its section in VALIDATION.md.  Run on the real chip:
-    python tools/validate_crn_frame.py          (~6 min: oracles ~50s each)
+Appends/replaces its section in VALIDATION.md.  Run on the device:
+    python tools/validate_crn_frame.py          (oracles ~50s each)
 Exit code 1 if any family violates the quantile or tie-fraction contract.
 """
 
@@ -95,22 +96,22 @@ def main():
 
     only = os.environ.get("PT_CRN_FAMILIES")  # substring filter
 
-    def run(name, tpu_fn, oracle_fn, q=Q_DEFAULT, tie_limit=TIE_DEFAULT):
+    def run(name, jax_fn, oracle_fn, q=Q_DEFAULT, tie_limit=TIE_DEFAULT):
         if only and not any(p in name for p in only.split(",")):
             return
         t0 = time.time()
-        jx = np.asarray(tpu_fn())
-        t_tpu = time.time() - t0
+        jx = np.asarray(jax_fn())
+        t_jax = time.time() - t0
         t0 = time.time()
         orc = oracle_fn()
         t_orc = time.time() - t0
         st = stats(jx, orc, spp, q)
-        st.update(name=name, t_tpu=t_tpu, t_orc=t_orc, qq=q,
+        st.update(name=name, t_jax=t_jax, t_orc=t_orc, qq=q,
                   tie_limit=tie_limit)
         rows.append(st)
         print(f"{name}: rmse {st['rmse']:.3e} p{q*100:.1f} {st['q']:.3e} "
               f"max {st['max']:.3e} ties {st['tie_frac']*100:.3f}% "
-              f"(tpu {t_tpu:.0f}s oracle {t_orc:.0f}s)", flush=True)
+              f"(jax {t_jax:.0f}s oracle {t_orc:.0f}s)", flush=True)
 
     run("super (intended math)",
         lambda: render_super(ck, scene, S, S, spp=spp),
@@ -162,7 +163,7 @@ def main():
         "",
         "The max column is the razor-edge tail (a discriminant within an",
         "ulp flips a whole occlusion unit for that sample - the class that",
-        "also separates XLA-CPU from XLA-TPU, docs/PERF.md); the tie",
+        "also separates XLA on the CPU from the GPU); the tie",
         "fraction quantifies it over the WHOLE frame, converting the",
         "band-limited <1e-3 estimator claim to the full image.",
         "",

@@ -1,6 +1,6 @@
 """Golden-render validation against the reference's committed artifacts.
 
-Runs on the real chip; writes VALIDATION.md at the repo root.
+Runs on the default JAX device; writes VALIDATION.md at the repo root.
 
 The reference commits three renders (SURVEY.md section 4): the CPU tracer's
 resultCPU.ppm and the CLSuperPathTracer/_lmem result.ppm (512^2 RGBA PAM,
@@ -8,7 +8,7 @@ resultCPU.ppm and the CLSuperPathTracer/_lmem result.ppm (512^2 RGBA PAM,
 agreement is statistical: RMSE in 8-bit units at matched spp (dominated by
 the two independent 64-spp Monte-Carlo noise realisations) and pixel
 correlation.  Also reports "spp to fixed RMSE" against a high-spp converged
-self-render (the BASELINE.json quality metric).
+self-render (the quality metric: display-scale RMSE < 1e-3).
 """
 
 import os
@@ -16,6 +16,7 @@ import sys
 import time
 
 import numpy as np
+import jax
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -43,7 +44,8 @@ def golden(path):
 def main():
     lines = ["# VALIDATION — golden-render comparison",
              "",
-             "Generated by tools/validate_golden.py on the real TPU chip.",
+             "Generated by tools/validate_golden.py on "
+             f"{jax.devices()[0].device_kind}.",
              ""]
     key = make_key(2026)
 
@@ -132,10 +134,10 @@ def main():
     ]
 
     # --- estimator bias via common random numbers -------------------------
-    # the oracles consume the SAME threefry streams as the TPU integrators
+    # the oracles consume the SAME threefry streams as the JAX integrators
     # (oracle key= mode), so the difference below contains NO Monte-Carlo
-    # noise - it is pure estimator bias + TPU float rounding.  This is the
-    # BASELINE.json "RMSE < 1e-3" criterion, demonstrated rather than argued.
+    # noise - it is pure estimator bias + float rounding.  This is the
+    # "RMSE < 1e-3" criterion, demonstrated rather than argued.
     from opencl_montecarlo_path_tracing_tpu.models.oracle_super import (
         render_oracle_super)
     from opencl_montecarlo_path_tracing_tpu.models.oracle import render_oracle
@@ -179,9 +181,9 @@ def main():
         scene, 296, band, spp=spp, n_vlp=128, key=ck, row_offset=r0), spp)
     rows.append(("bidirectional nvlp=128", r_, q_, m_))
     lines += [
-        "## estimator bias, common random numbers (TPU vs NumPy oracle)",
+        "## estimator bias, common random numbers (JAX vs NumPy oracle)",
         "",
-        "Oracle and TPU renders consume IDENTICAL threefry sample streams",
+        "Oracle and JAX renders consume IDENTICAL threefry sample streams",
         "over CONTENT bands (floor/diffuse geometry at rows 372+, the",
         "simple sphere field at rows 192+ - a window at the origin is all",
         "sky and would pin only the camera); the residual is estimator",
@@ -200,7 +202,7 @@ def main():
         "max column is the razor-edge-tie tail: a silhouette",
         "discriminant within an ulp flips between fused and plain f32 and",
         "that sample's whole path diverges; the same class separates",
-        "XLA-CPU from XLA-TPU - docs/PERF.md.)",
+        "XLA on the CPU from the GPU.)",
         "",
         "Note on the `_lmem` shadow carry-t quirk: the rebuild reproduces",
         "the kernel's `&t` aliasing exactly (core/quirks.py cites",
@@ -214,8 +216,8 @@ def main():
 
     # --- spp to fixed RMSE (self-converged reference) --------------------
     # display space: the canonical 64-spp-exposure image on a [0, 1] scale
-    # ((film/spp * 3.5 * 64 + 13) / 255); the BASELINE.json "RMSE < 1e-3"
-    # criterion is applied on that scale.
+    # ((film/spp * 3.5 * 64 + 13) / 255); the "RMSE < 1e-3" criterion is
+    # applied on that scale.
     def display(film, spp):
         return (np.asarray(film) / spp * 64.0 + 13.0) / 255.0
 
@@ -241,20 +243,8 @@ def main():
         "",
     ]
 
-    # preserve sections other tools append (e.g. the sharded-on-chip
-    # results from tools/validate_sharded_chip.py) instead of clobbering
-    # the whole file
-    keep = ""
-    try:
-        with open(OUT) as fp:
-            old = fp.read()
-        marker = "## sharded path executed on the real chip"
-        if marker in old:
-            keep = "\n" + old[old.index(marker):]
-    except FileNotFoundError:
-        pass
     with open(OUT, "w") as fp:
-        fp.write("\n".join(lines) + keep)
+        fp.write("\n".join(lines))
     print("\n".join(lines))
 
 
